@@ -1,17 +1,17 @@
-// Native host runtime for hypergef_tpu: MatrixMarket parsing, CSR
+// Native host runtime for hypergef: MatrixMarket parsing, CSR
 // construction, and ELL tile-plan building.
 //
 // Role parity with the reference's native layers: the data loader
 // (reference include/dataloader/dataloader.hpp:22-180 + vendored
 // mmio.hpp) and the CPU schedule builder (reference
 // include/taskbalancer/balancer_kernel.cuh:229-259).  Implemented fresh
-// for the TPU design: instead of the reference's chunk-pair task list,
+// for this design: instead of the reference's chunk-pair task list,
 // hg_build_ell emits the padded ELL gather tables consumed by the XLA
-// and Pallas backends (see hypergef_tpu/sparse/planner.py, whose NumPy
+// backends (see hypergef/sparse/planner.py, whose NumPy
 // implementation this must match bit-for-bit — tested in
 // tests/test_native.py).
 //
-// Plain C ABI, loaded via ctypes (hypergef_tpu/sparse/native.py).
+// Plain C ABI, loaded via ctypes (hypergef/sparse/native.py).
 
 #include <cstdint>
 #include <cstdio>
@@ -194,8 +194,8 @@ int64_t hg_build_ell(const int64_t* indptr, const int32_t* indices,
 // ---------------------------------------------------------------------
 // Role parity with the reference's vendored-but-unused Rabbit Order
 // subsystem (reference include/reorder/rabbit_order.hpp:267-753): a
-// locality-creating vertex ordering.  On TPU this ordering is
-// load-bearing — the multihot-MXU and BSR backends' cost scales with
+// locality-creating vertex ordering.  Here this ordering is
+// load-bearing — the multihot, aligned and BSR backends' cost scales with
 // how tile-local each hyperedge's members are (see
 // sparse/planner.py::TiledStage.fragmentation).  Implemented fresh as
 // synchronous hypergraph label propagation:
@@ -206,7 +206,7 @@ int64_t hg_build_ell(const int64_t* indptr, const int32_t* indices,
 //   order = vertices sorted by (final label, id)
 //
 // Deterministic; bit-identical to the NumPy twin in
-// hypergef_tpu/sparse/reorder.py (tested in tests/test_native.py).
+// hypergef/sparse/reorder.py (tested in tests/test_native.py).
 
 namespace {
 
@@ -266,7 +266,7 @@ void hg_community_order(int64_t n, int64_t e, const int64_t* ht_indptr,
 // ---------------------------------------------------------------------
 // Multilevel best-friend star coarsening order
 // ---------------------------------------------------------------------
-// C++ twin of hypergef_tpu/sparse/reorder.py::coarsen_order (the
+// C++ twin of hypergef/sparse/reorder.py::coarsen_order (the
 // round-2 default community ordering; recovers planted SBM structure to
 // ground-truth aligned-window spill where label propagation floods).
 // Fresh Rabbit-Order-class design (reference vendors-but-never-calls

@@ -1,32 +1,29 @@
-"""Auto-selection optimality matrix (round-1 VERDICT item 3 criterion:
+"""Auto-selection optimality matrix (criterion:
 "backend='auto' ties-or-beats every fixed backend across the bench
 matrix").
 
 For each workload: measure every applicable fixed backend plus the
 ladder's auto pick, interleaved in one process (honest fencing), and
 record auto's slowdown vs the best fixed backend.  Writes
-experiments/results/auto_matrix_r2.csv.
+experiments/out/auto_matrix.csv.
 
-Run: PYTHONPATH=/root/repo python experiments/auto_matrix.py
+Run: python experiments/auto_matrix.py
 """
 
 import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/hypergef_jax_cache")
 
-from hypergef_tpu.utils.platform import apply_platform_env
-
-apply_platform_env()
+from hypergef.utils.cache import enable_compile_cache  # noqa: E402
 
 import numpy as np
 import jax.numpy as jnp
 
-from hypergef_tpu.data.synthetic import random_hypergraph
-from hypergef_tpu.ops import fused
-from hypergef_tpu.sparse.planner import plan_aggregation
-from hypergef_tpu.utils.timing import chain_fold, device_time_per_iter
+from hypergef.data.synthetic import random_hypergraph
+from hypergef.ops import fused
+from hypergef.sparse.planner import plan_aggregation
+from hypergef.utils.timing import chain_fold, device_time_per_iter
 
 F = 32
 
@@ -41,7 +38,7 @@ def workloads():
     yield "pubmed_sq", random_hypergraph(19717, 19717, avg_edge_size=4.3,
                                          seed=0, name="pubmed_sq")
     from clustered_bench import community_hypergraph
-    from hypergef_tpu.sparse.reorder import apply_vertex_order
+    from hypergef.sparse.reorder import apply_vertex_order
 
     sbm = community_hypergraph(60_000, 30_000, 240, 12, 0.02, 0)
     sbm, _ = apply_vertex_order(sbm, np.arange(sbm.num_nodes),
@@ -62,8 +59,8 @@ def applicable_backends(plan):
 
 
 def main():
-    out_path = os.path.join(os.path.dirname(__file__), "results",
-                            "auto_matrix_r4.csv")
+    out_path = os.path.join(os.path.dirname(__file__), "out",
+                            "auto_matrix.csv")
     rows = ["workload,nnz,auto_pick,auto_us,best_fixed,best_fixed_us,"
             "auto_over_best,tuned_pick,tuned_matches_best"]
     for name, hg in workloads():
@@ -79,9 +76,9 @@ def main():
                 return chain_fold(y, a)
             try:
                 # same min-window rule as sparse/autotune.sweep: widen
-                # until the chained window sits ≥2× above dispatch — at
-                # the ~10 µs scale a 100-iter window is still inside
-                # dispatch jitter and inverts rankings (round-4 finding)
+                # until the chained window sits ≥2× above dispatch — for
+                # fast kernels a short window is inside dispatch jitter
+                # and inverts rankings
                 r = device_time_per_iter(step, x0, iters=20)
                 cur = 20
                 while cur < 4000 and (
@@ -96,26 +93,28 @@ def main():
         auto_pick = plan.preferred_backend
         auto_us = times.get(auto_pick, float("nan"))
         best = min(times, key=times.get)
-        # round-3: the PRODUCT tuning path (what `--tune` runs —
+        # the PRODUCT tuning path (what `--tune` runs —
         # sparse/autotune.autotune with persistence); its pick should
         # agree with the interleaved ground truth above
-        from hypergef_tpu.sparse.autotune import autotune
+        from hypergef.sparse.autotune import autotune
 
-        # cache=False: round-4 re-validates the tuner's min-window guard
-        # (VERDICT r3 #7) — a cached round-3 pick would mask it
+        # cache=False: re-validate the tuner's min-window guard — a
+        # cached pick would mask it
         tuned = autotune(hg, F, cache=False)
         near_best = [b for b, t in times.items()
-                     if t <= times[best] * 1.15]  # within chip jitter
+                     if t <= times[best] * 1.15]  # within run-to-run jitter
         row = (f"{name},{hg.nnz},{auto_pick},{auto_us:.1f},{best},"
                f"{times[best]:.1f},{auto_us / times[best]:.3f},"
                f"{tuned.backend},{tuned.backend in near_best}")
         print(row, "|", {k: round(v, 1) for k, v in times.items()},
               flush=True)
         rows.append(row)
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, "w") as f:
         f.write("\n".join(rows) + "\n")
     print("wrote", out_path, flush=True)
 
 
 if __name__ == "__main__":
+    enable_compile_cache()
     main()

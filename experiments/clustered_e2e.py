@@ -1,18 +1,16 @@
 """End-to-end training in the SPARSE regime: does the aligned backend's
 kernel win survive a full train step?
 
-VERDICT round-1 flagged that the headline e2e number rides the dense-MXU
-backend; this artifact measures the full train epoch (fwd + NLL + bwd +
+The headline e2e number rides the dense backend; this artifact measures the full train epoch (fwd + NLL + bwd +
 Adam, chained device time) on the SBM-60k clustered workload — beyond
 the dense/precomp caps — across sparse backends.  The reference has no
 clustered e2e analogue (its e2e suite is the 13 small datasets); the
 yardstick here is backend-relative.
 
-Output: experiments/results/clustered_e2e_r2.csv
+Output: experiments/out/clustered_e2e.csv
 
-Run on TPU:
-    PYTHONPATH="/root/repo:$PYTHONPATH" nohup python -u \
-        experiments/clustered_e2e.py > /tmp/clustered_e2e.log 2>&1 &
+Run:
+    python -u experiments/clustered_e2e.py
 """
 
 import os
@@ -20,11 +18,8 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, os.path.dirname(__file__))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/hypergef_jax_cache")
 
-from hypergef_tpu.utils.platform import apply_platform_env
-
-apply_platform_env()
+from hypergef.utils.cache import enable_compile_cache  # noqa: E402
 
 import numpy as np
 
@@ -34,9 +29,9 @@ from clustered_bench import community_hypergraph
 def main():
     import jax
 
-    from hypergef_tpu.sparse import planner
-    from hypergef_tpu.sparse.reorder import apply_vertex_order
-    from hypergef_tpu.train import TrainConfig, Trainer, rand_train_test_idx
+    from hypergef.sparse import planner
+    from hypergef.sparse.reorder import apply_vertex_order
+    from hypergef.train import TrainConfig, Trainer, rand_train_test_idx
 
     n, e, comm, avg, noise, f = 60_000, 30_000, 240, 12, 0.02, 32
     hg = community_hypergraph(n, e, comm, avg, noise, 0)
@@ -72,12 +67,14 @@ def main():
             row = f"{backend},FAILED:{type(exc).__name__},"
         rows.append(row)
         print(row, flush=True)
-    out = os.path.join(os.path.dirname(__file__), "results",
-                       "clustered_e2e_r2.csv")
+    out = os.path.join(os.path.dirname(__file__), "out",
+                       "clustered_e2e.csv")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     with open(out, "w") as fh:
         fh.write("\n".join(rows) + "\n")
     print(f"wrote {out}")
 
 
 if __name__ == "__main__":
+    enable_compile_cache()
     main()

@@ -14,28 +14,27 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from hypergef_tpu.utils.platform import apply_platform_env
-
-apply_platform_env()
+from hypergef.utils.cache import enable_compile_cache  # noqa: E402
 
 import numpy as np
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="fig10.csv")
+    ap.add_argument("--out", default="experiments/out/fig10.csv")
     ap.add_argument("--config", default="20news")
     ap.add_argument("--feat", type=int, default=32)
     ap.add_argument("--ngs", default="4,8,16,32,64,128")
     ap.add_argument("--iters", type=int, default=30)
     args = ap.parse_args()
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
 
     import jax.numpy as jnp
 
-    from hypergef_tpu.data.synthetic import random_hypergraph
-    from hypergef_tpu.ops import fused
-    from hypergef_tpu.sparse.planner import plan_tree
-    from hypergef_tpu.utils.timing import device_time_per_iter
+    from hypergef.data.synthetic import random_hypergraph
+    from hypergef.ops import fused
+    from hypergef.sparse.planner import plan_tree
+    from hypergef.utils.timing import device_time_per_iter
 
     shapes = {
         "20news": (16242, 100, 654.5),
@@ -68,4 +67,5 @@ def main():
 
 
 if __name__ == "__main__":
+    enable_compile_cache()
     main()

@@ -15,9 +15,7 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from hypergef_tpu.utils.platform import apply_platform_env
-
-apply_platform_env()
+from hypergef.utils.cache import enable_compile_cache  # noqa: E402
 
 import numpy as np
 
@@ -44,9 +42,9 @@ SHAPES = {
 
 
 def run_one(name, model, nhid, backend, epochs):
-    from hypergef_tpu.data.datasets import DatasetNotAvailable, load_dataset
-    from hypergef_tpu.data.synthetic import homophilic_hypergraph
-    from hypergef_tpu.train import TrainConfig, Trainer, rand_train_test_idx
+    from hypergef.data.datasets import DatasetNotAvailable, load_dataset
+    from hypergef.data.synthetic import homophilic_hypergraph
+    from hypergef.train import TrainConfig, Trainer, rand_train_test_idx
 
     try:
         ds = load_dataset(name)
@@ -75,7 +73,7 @@ def run_one(name, model, nhid, backend, epochs):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="fig6.csv")
+    ap.add_argument("--out", default="experiments/out/fig6.csv")
     ap.add_argument("--datasets", default=",".join(SHAPES))
     ap.add_argument("--hids", default="32,64,128")
     ap.add_argument("--models", default="HGNN,UniGIN,UniGCNII")
@@ -83,6 +81,7 @@ def main():
     ap.add_argument("--epochs", type=int, default=50)
     ap.add_argument("--quick", action="store_true")
     args = ap.parse_args()
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     if args.quick:
         args.epochs = 10
     with open(args.out, "a") as f:
@@ -106,4 +105,5 @@ def main():
 
 
 if __name__ == "__main__":
+    enable_compile_cache()
     main()

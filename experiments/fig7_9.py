@@ -15,16 +15,14 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from hypergef_tpu.utils.platform import apply_platform_env
-
-apply_platform_env()
+from hypergef.utils.cache import enable_compile_cache  # noqa: E402
 
 import numpy as np
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="fig7.csv")
+    ap.add_argument("--out", default="experiments/out/fig7.csv")
     ap.add_argument("--configs", default="cora,pubmed")
     ap.add_argument("--feat", type=int, default=32)
     ap.add_argument("--backends", default="xla,cumsum,tree,dense")
@@ -32,13 +30,14 @@ def main():
     ap.add_argument("--vs-ref", action="store_true",
                     help="emit per-dataset SUMMARY rows vs RTX 3090 ref")
     args = ap.parse_args()
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
 
     import jax.numpy as jnp
 
-    from hypergef_tpu.data.synthetic import random_hypergraph
-    from hypergef_tpu.ops import fused
-    from hypergef_tpu.sparse.planner import plan_aggregation
-    from hypergef_tpu.utils.timing import device_time_per_iter
+    from hypergef.data.synthetic import random_hypergraph
+    from hypergef.ops import fused
+    from hypergef.sparse.planner import plan_aggregation
+    from hypergef.utils.timing import device_time_per_iter
 
     shapes = {
         "cora": (2708, 2708, 4.0),
@@ -98,7 +97,7 @@ def main():
         for cname in args.configs.split(","):
             if cname in clustered:
                 from clustered_bench import community_hypergraph
-                from hypergef_tpu.sparse.reorder import apply_vertex_order
+                from hypergef.sparse.reorder import apply_vertex_order
 
                 n, e, comm, avg, noise = clustered[cname]
                 hg = community_hypergraph(n, e, comm, avg, noise, 0)
@@ -172,4 +171,5 @@ def main():
 
 
 if __name__ == "__main__":
+    enable_compile_cache()
     main()

@@ -14,26 +14,25 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from hypergef_tpu.utils.platform import apply_platform_env
-
-apply_platform_env()
+from hypergef.utils.cache import enable_compile_cache  # noqa: E402
 
 import numpy as np
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="fig8.csv")
+    ap.add_argument("--out", default="experiments/out/fig8.csv")
     ap.add_argument("--configs", default="cora,pubmed")
     ap.add_argument("--feat", type=int, default=32)
     args = ap.parse_args()
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
 
     import jax.numpy as jnp
 
-    from hypergef_tpu.data.synthetic import random_hypergraph
-    from hypergef_tpu.ops import fused
-    from hypergef_tpu.sparse.planner import plan_aggregation
-    from hypergef_tpu.utils.profiling import traffic_report
+    from hypergef.data.synthetic import random_hypergraph
+    from hypergef.ops import fused
+    from hypergef.sparse.planner import plan_aggregation
+    from hypergef.utils.profiling import traffic_report
 
     shapes = {
         "cora": (2708, 2708, 4.0),
@@ -71,4 +70,5 @@ def main():
 
 
 if __name__ == "__main__":
+    enable_compile_cache()
     main()

@@ -1,4 +1,4 @@
-"""Minibatch-path perf artifact (BASELINE config #4; round-4 mandate #6).
+"""Minibatch-path perf artifact (BASELINE config #4).
 
 The reference has no sampled/minibatch path at all — its e2e protocol
 (``hgsys.py:146-211``: warm-up + timed epochs + accuracy) is the bar
@@ -17,9 +17,8 @@ evaluating every eval-interval, and record the first time/epoch where
 valid ≥ band.  Wall-clock is the honest metric for the minibatch path
 (host-in-loop sampling is part of the design).
 
-Run on TPU:
-    nohup python experiments/minibatch_bench.py \
-        --out experiments/results/minibatch_r4.csv > /tmp/mb_r4.log 2>&1 &
+Run:
+    python experiments/minibatch_bench.py --out experiments/out/minibatch.csv
 """
 
 import argparse
@@ -28,11 +27,8 @@ import sys
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/hypergef_jax_cache")
 
-from hypergef_tpu.utils.platform import apply_platform_env
-
-apply_platform_env()
+from hypergef.utils.cache import enable_compile_cache  # noqa: E402
 
 import numpy as np
 
@@ -62,16 +58,17 @@ def time_to_band(fit_chunk, evaluate, band, max_units, unit_chunk):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="experiments/results/minibatch_r4.csv")
+    ap.add_argument("--out", default="experiments/out/minibatch.csv")
     ap.add_argument("--workloads", default=",".join(WORKLOADS))
     ap.add_argument("--epochs", type=int, default=150)
     ap.add_argument("--batch-edges", type=int, default=512)
     ap.add_argument("--eval-every", type=int, default=10)
     args = ap.parse_args()
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
 
-    from hypergef_tpu.data.synthetic import homophilic_hypergraph, random_features
-    from hypergef_tpu.train import TrainConfig, Trainer, rand_train_test_idx
-    from hypergef_tpu.train.minibatch import MinibatchTrainer
+    from hypergef.data.synthetic import homophilic_hypergraph, random_features
+    from hypergef.train import TrainConfig, Trainer, rand_train_test_idx
+    from hypergef.train.minibatch import MinibatchTrainer
 
     header = (
         "workload,path,nnz,band_acc,reached_acc,units,unit,wall_s,"
@@ -137,4 +134,5 @@ def main():
 
 
 if __name__ == "__main__":
+    enable_compile_cache()
     main()

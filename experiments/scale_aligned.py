@@ -1,7 +1,6 @@
 """Large-graph scaling of the aligned (gather-free) fused aggregation.
 
-VERDICT round-1 target: 10M-nnz fused round-trip ≤ 20 ns/nnz (round 1
-stood at 202 ns/nnz, gather-latency-bound).  The aligned banded form
+The aligned banded form
 replaces all per-nnz gathers with streamed band matmuls, so its cost is
 streamed-bytes-bound (∝ num_segments · window) — per-nnz time *improves*
 with density and scale instead of degrading.
@@ -11,11 +10,11 @@ Two configs:
     community structure (reference fused kernel: 12.484 µs, BASELINE §1)
   * ``sbm10m`` — 2M vertices × 1M hyperedges, avg 10, nnz≈10M
 
-Both measured against the tree backend (the round-1 status quo).
-Output: experiments/results/scale_aligned_r2.csv
+Both measured against the tree backend.
+Output: experiments/out/scale_aligned.csv
 
-Run on TPU:
-    nohup python experiments/scale_aligned.py > /tmp/scale_aligned.log 2>&1 &
+Run:
+    python experiments/scale_aligned.py
 """
 
 import argparse
@@ -24,11 +23,8 @@ import sys
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/hypergef_jax_cache")
 
-from hypergef_tpu.utils.platform import apply_platform_env
-
-apply_platform_env()
+from hypergef.utils.cache import enable_compile_cache  # noqa: E402
 
 import numpy as np
 
@@ -47,7 +43,7 @@ def big_sbm(n_nodes, n_edges, n_comm, avg, noise, seed):
     mem = lo + (rng.random(k.sum()) * (hi - lo)).astype(np.int64)
     flip = rng.random(k.sum()) < noise
     mem[flip] = rng.integers(0, n_nodes, size=int(flip.sum()))
-    from hypergef_tpu.sparse.hypergraph import Hypergraph
+    from hypergef.sparse.hypergraph import Hypergraph
 
     return Hypergraph.from_coo(mem, seg, num_nodes=n_nodes,
                                num_edges=n_edges, name=f"sbm{n_comm}")
@@ -66,16 +62,16 @@ def main():
     ap.add_argument("--configs", nargs="*", default=list(CONFIGS))
     ap.add_argument("--feat", type=int, default=32)
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--out", default="experiments/results/scale_aligned_r3.csv")
+    ap.add_argument("--out", default="experiments/out/scale_aligned.csv")
     args = ap.parse_args()
 
     import jax
     import jax.numpy as jnp
 
-    from hypergef_tpu.ops import fused
-    from hypergef_tpu.sparse import planner
-    from hypergef_tpu.sparse.reorder import apply_vertex_order
-    from hypergef_tpu.utils.timing import chain_fold, device_time_per_iter
+    from hypergef.ops import fused
+    from hypergef.sparse import planner
+    from hypergef.sparse.reorder import apply_vertex_order
+    from hypergef.utils.timing import chain_fold, device_time_per_iter
 
     rows = [
         f"# aligned scaling f={args.feat} dev={jax.devices()[0].platform}",
@@ -118,9 +114,8 @@ def main():
                     # let XLA strength-reduce matmul-form backends
                     return chain_fold(y, xv)
 
-                # the tree leg at 10M nnz runs ~2 s/iter: cap its chain so
-                # one dispatch stays well under a minute (the round-2
-                # re-run crashed the TPU worker with an 80 s+ program)
+                # the tree leg at 10M nnz is slow per iteration: cap its
+                # chain so one dispatch stays well under a minute
                 leg_iters = (min(args.iters, 10)
                              if backend == "tree" and hg.nnz > 5_000_000
                              else args.iters)
@@ -144,4 +139,5 @@ def main():
 
 
 if __name__ == "__main__":
+    enable_compile_cache()
     main()

@@ -1,26 +1,20 @@
-"""100M-nnz halo layer, MEASURED by serialized execution — round-4
-mandate #9 (upgrade of the r3 fitted projection).
+"""100M-nnz halo layer, measured by serialized execution on one card.
 
-The r3 artifact projected the 100M-nnz layer from a 4-point fitted
-shard curve whose linear fit carried a physically odd −4.5 ms intercept
-(an artifact of fitting a line to a mildly convex ns/nnz curve: the
-12.5M/18.7M shards pay proportionally more spill-gather latency than
-the 3.1M one).  This driver ELIMINATES the extrapolation: it builds the
-real 8-shard HaloPlan of a 100M-nnz community graph and executes all 8
-shard programs back-to-back on the one chip
+Builds the real 8-shard HaloPlan of a 100M-nnz community graph and
+executes all 8 shard programs back-to-back on one device
 (``parallel/serial_halo.serialized_halo_forward``, oracle- and
 shard_map-equivalence-tested), staging the two all_to_alls through the
 host.  Reported:
 
-* per-shard device compute, chained-fenced (the honest kernel number);
-* the REAL exchange buffer sizes from the plan's masks — the ICI
-  transfer term is the ONLY modeled quantity left (45 GB/s/link);
+* per-shard device compute, chained-fenced;
+* the REAL exchange buffer sizes from the plan's masks — the link
+  transfer term is the ONLY modeled quantity (``--link-gbps``, required:
+  the card's data-sheet rate, e.g. 450 GB/s each way for H100 NVLink);
 * total serialized wall time (staging + compute) for provenance.
 
-Output: experiments/results/scale_serialized_r4.csv
-Run on TPU (long: graph gen + plan build are tens of minutes host-side):
-    nohup python -u experiments/scale_serialized.py \
-        > /tmp/scale_ser.log 2>&1 &
+Output: experiments/out/scale_serialized.csv
+Run (long: graph gen + plan build are tens of minutes host-side):
+    python -u experiments/scale_serialized.py --link-gbps 450
 """
 
 import argparse
@@ -30,11 +24,8 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, os.path.dirname(__file__))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/hypergef_jax_cache")
 
-from hypergef_tpu.utils.platform import apply_platform_env
-
-apply_platform_env()
+from hypergef.utils.cache import enable_compile_cache  # noqa: E402
 
 import numpy as np
 
@@ -50,27 +41,30 @@ def main():
     ap.add_argument("--shards", type=int, default=8)
     ap.add_argument("--feat", type=int, default=32)
     ap.add_argument("--iters", type=int, default=5)
-    ap.add_argument("--ici-gbps", type=float, default=45.0)
+    ap.add_argument("--link-gbps", type=float, required=True,
+                    help="per-link bandwidth between cards (GB/s, one "
+                    "direction; data sheet), recorded in the CSV")
     ap.add_argument("--out",
-                    default="experiments/results/scale_serialized_r5.csv")
-    ap.add_argument("--plan-cache", default="/tmp/hypergef_plancache_scale")
+                    default="experiments/out/scale_serialized.csv")
+    ap.add_argument("--plan-cache", default="experiments/out/plancache")
     ap.add_argument("--epoch", action="store_true",
                     help="also measure ONE serialized full train step "
-                    "(fwd+loss+bwd+Adam; round-5 mandate #7) and append "
+                    "(fwd+loss+bwd+Adam) and append "
                     "an epoch row")
     ap.add_argument("--skip-layer", action="store_true",
                     help="skip the layer measurement (epoch-only rerun "
                     "against the cached plan)")
     args = ap.parse_args()
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
 
     import jax.numpy as jnp
 
-    from hypergef_tpu.parallel.halo import plan_halo
-    from hypergef_tpu.parallel.serial_halo import (
+    from hypergef.parallel.halo import plan_halo
+    from hypergef.parallel.serial_halo import (
         _shard_ops, serialized_halo_forward,
     )
-    from hypergef_tpu.sparse.reorder import apply_vertex_order
-    from hypergef_tpu.utils.timing import chain_fold, device_time_per_iter
+    from hypergef.sparse.reorder import apply_vertex_order
+    from hypergef.utils.timing import chain_fold, device_time_per_iter
 
     t0 = time.time()
     hg = big_sbm(args.nodes, args.edges, args.comm, args.avg, 0.01, 0)
@@ -84,7 +78,7 @@ def main():
     # spill); this host affords the bytes.  Content-keyed cache: the
     # 100M-nnz plan build is ~17 min host-side — cache it so a re-run
     # (e.g. after an OOM fix in the executor) re-measures in minutes.
-    from hypergef_tpu.sparse.plancache import cached_plan_halo
+    from hypergef.sparse.plancache import cached_plan_halo
 
     plan = cached_plan_halo(hg, args.shards, cache_dir=args.plan_cache,
                             local_form="aligned",
@@ -98,8 +92,8 @@ def main():
         size=(hg.num_nodes, args.feat)).astype(np.float32)
 
     rows = [
-        "# 100M-nnz halo layer r5: serialized MEASUREMENT (one chip, "
-        "host-staged exchanges); ICI transfer is the only modeled term",
+        "# 100M-nnz halo layer: serialized MEASUREMENT (one card, "
+        "host-staged exchanges); link transfer is the only modeled term",
         "quantity,value,unit,provenance",
         f"graph_nnz,{hg.nnz},nnz,generated community graph "
         f"({args.nodes}x{args.edges} comm={args.comm})",
@@ -108,9 +102,9 @@ def main():
     ]
 
     if args.epoch:
-        # serialized full train step (round-5 mandate #7): epoch = one
+        # serialized full train step: epoch = one
         # full-batch fwd+loss+bwd+Adam step (reference protocol)
-        from hypergef_tpu.parallel.serial_halo_train import (
+        from hypergef.parallel.serial_halo_train import (
             serialized_halo_train_epochs,
         )
 
@@ -157,12 +151,12 @@ def main():
     # program shape by construction)
     import jax
 
-    from hypergef_tpu.parallel.serial_halo import _edge_stage
-    from hypergef_tpu.ops.tree import apply_levels
+    from hypergef.parallel.serial_halo import _edge_stage
+    from hypergef.ops.tree import apply_levels
 
     D, f = plan.n_shards, args.feat
     b_cap_h = plan.halo_send_slot.shape[2]
-    from hypergef_tpu.parallel.halo_aggr import shard_vertex_features
+    from hypergef.parallel.halo_aggr import shard_vertex_features
 
     xs = shard_vertex_features(plan, x).reshape(D, plan.n_own, f)
     halo_in0 = np.zeros((D, b_cap_h, f), np.float32)
@@ -184,29 +178,26 @@ def main():
           f"({t_shard/shard_nnz*1e9:.2f} ns/nnz, compile {r['compile_s']:.0f}s)",
           flush=True)
 
-    # ICI model on REAL buffer sizes (the only modeled term left)
-    t_ici = (stats["halo_bytes_real"] + stats["return_bytes_real"]) / (
-        args.shards * args.ici_gbps * 1e9
+    # link model on REAL buffer sizes (the only modeled term left)
+    t_link = (stats["halo_bytes_real"] + stats["return_bytes_real"]) / (
+        args.shards * args.link_gbps * 1e9
     )
-    t_layer = t_shard + t_ici
+    t_layer = t_shard + t_link
     rows += [
         f"shard_compute,{t_shard*1e3:.3f},ms,MEASURED(serialized) chained "
-        f"on v5e; all {args.shards} shards share this program shape",
+        f"on {jax.devices()[0].device_kind}; all {args.shards} shards "
+        "share this program shape",
         f"shard_ns_per_nnz,{t_shard/shard_nnz*1e9:.3f},ns/nnz,MEASURED(serialized)",
         f"halo_buffer,{stats['halo_bytes_real']/1e6:.1f},MB,REAL plan mask sum",
         f"return_buffer,{stats['return_bytes_real']/1e6:.1f},MB,REAL plan mask sum",
-        f"ici_transfer,{t_ici*1e3:.3f},ms,MODELED {args.ici_gbps} GB/s/link "
+        f"link_transfer,{t_link*1e3:.3f},ms,MODELED {args.link_gbps} GB/s/link "
         "over real buffer bytes",
         f"layer_100M,{t_layer*1e3:.3f},ms,MEASURED(serialized) shard compute "
-        "+ modeled ICI only",
+        "+ modeled link only",
         f"aggregate_ns_per_nnz,{t_layer / hg.nnz * 1e9:.3f},ns/nnz,"
-        f"layer time / total nnz ({args.shards}-chip slice throughput)",
-        f"serialized_wall,{wall_s:.1f},s,full layer on one chip incl. host "
+        f"layer time / total nnz ({args.shards}-card throughput)",
+        f"serialized_wall,{wall_s:.1f},s,full layer on one card incl. host "
         "staging (provenance)",
-        "# r3 fit intercept (-4.5 ms) ELIMINATED: no extrapolation — the "
-        "target shard size is measured directly; the intercept was a "
-        "line-fit artifact over a convex ns/nnz curve (spill-gather "
-        "latency grows faster than band stream with shard size)",
     ]
     with open(args.out, "w") as fh:
         fh.write("\n".join(rows) + "\n")
@@ -214,4 +205,5 @@ def main():
 
 
 if __name__ == "__main__":
+    enable_compile_cache()
     main()

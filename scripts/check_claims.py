@@ -1,24 +1,17 @@
-"""Claims-equal-artifacts check (round-5 mandate #2).
+"""Claims-equal-artifacts check.
 
-Rounds 2-4 each shipped at least one published claim that pointed at an
-artifact which did not exist or was stale (worst case: round 4's
-`scale_serialized_r4.csv`, claimed MEASURED, never produced — the run had
-crashed before its first measurement).  This script makes that failure
-mode mechanical to catch: every artifact filename mentioned in the
-published documents must exist as a committed file, unless the mention
-is an explicit retraction.
+Every artifact filename mentioned in the published documents must exist
+as a committed file, unless the mention is an explicit retraction.
 
 Checks:
   1. Every `*_rN.{csv,json,txt}` / `BENCH_*` / `MULTICHIP_*` name
      mentioned in README.md, ROADMAP.md, PARITY.md, BASELINE.md,
-     docs/*.md, experiments/results/README.md resolves to a file in the
-     tree (searched at repo root and experiments/results/).
+     PERF.md, CHANGES.md and docs/*.md resolves to a file in the tree
+     (searched at the repo root).
   2. Retraction lines (containing one of the RETRACTION_MARKERS) are
      exempt — a correction must be able to NAME the missing file.
-  3. Every CSV/JSON/TXT file in experiments/results/ is mentioned in
-     experiments/results/README.md (no orphan artifacts).
 
-Run before every end-of-round snapshot:
+Run before publishing a claim:
     python scripts/check_claims.py        # exit 0 = claims match tree
 """
 
@@ -35,7 +28,8 @@ DOCS = [
     "ROADMAP.md",
     "PARITY.md",
     "BASELINE.md",
-    "experiments/results/README.md",
+    "PERF.md",
+    "CHANGES.md",
 ]
 
 # artifact-looking filenames: experiment outputs and driver captures
@@ -57,7 +51,7 @@ RETRACTION_MARKERS = (
     "was missing",
 )
 
-SEARCH_DIRS = ["", "experiments/results"]
+SEARCH_DIRS = [""]
 
 
 def find_artifact(name: str) -> str | None:
@@ -83,7 +77,7 @@ def doc_paths() -> list[str]:
 def main() -> int:
     failures: list[str] = []
 
-    # 1+2: every mentioned artifact exists (or the line is a retraction)
+    # every mentioned artifact exists (or the line is a retraction)
     for path in doc_paths():
         rel = os.path.relpath(path, REPO)
         with open(path) as fh:
@@ -98,21 +92,6 @@ def main() -> int:
                         f"{rel}:{ln}: claims artifact {name!r} which does "
                         f"not exist in the tree"
                     )
-
-    # 3: no orphan artifacts — results dir files must be indexed
-    res_dir = os.path.join(REPO, "experiments", "results")
-    idx_path = os.path.join(res_dir, "README.md")
-    if os.path.isdir(res_dir) and os.path.exists(idx_path):
-        with open(idx_path) as fh:
-            idx = fh.read()
-        for f in sorted(os.listdir(res_dir)):
-            if f == "README.md" or not f.endswith((".csv", ".json", ".txt")):
-                continue
-            if f not in idx:
-                failures.append(
-                    f"experiments/results/{f} exists but is not indexed in "
-                    f"experiments/results/README.md"
-                )
 
     if failures:
         print(f"CLAIMS CHECK FAILED ({len(failures)}):")

@@ -177,7 +177,7 @@ ALL_13 = {
 if __name__ == "__main__":
     for name, fn in ALL_13.items():
         fn()
-        # positive fixture marker: hypergef_tpu.data.parity skips the
+        # positive fixture marker: hypergef.data.parity skips the
         # real-shape/accuracy checks when this file is present, so the
         # same --validate-parity command is fixture-safe and real-strict
         with open(os.path.join(OUT, name, "FIXTURE"), "w") as f:

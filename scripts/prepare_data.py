@@ -23,12 +23,12 @@ def main():
                     help="comma list; default = all 13")
     args = ap.parse_args()
 
-    from hypergef_tpu.data.datasets import (
+    from hypergef.data.datasets import (
         EXISTING_DATASETS,
         DatasetNotAvailable,
         load_dataset,
     )
-    from hypergef_tpu.sparse.stats import graph_stats
+    from hypergef.sparse.stats import graph_stats
 
     names = args.datasets.split(",") if args.datasets else EXISTING_DATASETS
     os.makedirs(args.mtx_out, exist_ok=True)

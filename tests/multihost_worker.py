@@ -24,7 +24,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from hypergef_tpu.parallel import multihost  # noqa: E402
+from hypergef.parallel import multihost  # noqa: E402
 
 
 def main():
@@ -77,9 +77,9 @@ def main():
     # dense NumPy oracle on this process's owned rows.
     from jax.sharding import Mesh
 
-    from hypergef_tpu.data.synthetic import powerlaw_hypergraph
-    from hypergef_tpu.parallel.halo import plan_halo
-    from hypergef_tpu.parallel.halo_aggr import (
+    from hypergef.data.synthetic import powerlaw_hypergraph
+    from hypergef.parallel.halo import plan_halo
+    from hypergef.parallel.halo_aggr import (
         halo_hgnn_aggregate,
         shard_vertex_features,
     )

@@ -5,10 +5,10 @@ candidates it measured (on the measuring device)."""
 import numpy as np
 import pytest
 
-from hypergef_tpu.data.synthetic import random_hypergraph
-from hypergef_tpu.ops import fused
-from hypergef_tpu.sparse import autotune
-from hypergef_tpu.sparse.planner import plan_aggregation
+from hypergef.data.synthetic import random_hypergraph
+from hypergef.ops import fused
+from hypergef.sparse import autotune
+from hypergef.sparse.planner import plan_aggregation
 
 from conftest import dense_hgnn_oracle
 

@@ -1,12 +1,12 @@
-"""BSR (block-sparse MXU) backend tests."""
+"""BSR (block-sparse matmul) backend tests."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hypergef_tpu.ops import fused
-from hypergef_tpu.sparse.bsr import BLOCK, build_bsr_stage, plan_bsr, rcm_bipartite_order
+from hypergef.ops import fused
+from hypergef.sparse.bsr import BLOCK, build_bsr_stage, plan_bsr, rcm_bipartite_order
 
 from conftest import dense_hgnn_oracle, dense_unignn_oracle
 
@@ -61,7 +61,7 @@ def test_bsr_unignn(small_hg):
 
 
 def test_bsr_grad_matches_tree(skewed_hg):
-    from hypergef_tpu.sparse.planner import plan_tree
+    from hypergef.sparse.planner import plan_tree
 
     hg = skewed_hg
     hgd = hg.device_data()
@@ -83,7 +83,7 @@ def test_bsr_grad_matches_tree(skewed_hg):
 
 
 def test_rcm_reordering_improves_or_equal_blocks():
-    from hypergef_tpu.data.synthetic import homophilic_hypergraph
+    from hypergef.data.synthetic import homophilic_hypergraph
 
     hg, _ = homophilic_hypergraph(1500, 900, 8, avg_edge_size=5.0, noise=0.02, seed=3)
     p_plain = plan_bsr(hg, reorder=False)
@@ -93,7 +93,7 @@ def test_rcm_reordering_improves_or_equal_blocks():
 
 
 def test_bsr_memory_guard():
-    from hypergef_tpu.data.synthetic import random_hypergraph
+    from hypergef.data.synthetic import random_hypergraph
 
     hg = random_hypergraph(4000, 3000, avg_edge_size=3.0, seed=0)
     with pytest.raises(MemoryError, match="budget"):
@@ -105,9 +105,9 @@ def test_bsr_community_reorder_fill():
     (vs no reordering); plan stays numerically correct."""
     import jax.numpy as jnp
 
-    from hypergef_tpu.data.synthetic import homophilic_hypergraph
-    from hypergef_tpu.ops import fused
-    from hypergef_tpu.sparse.bsr import plan_bsr
+    from hypergef.data.synthetic import homophilic_hypergraph
+    from hypergef.ops import fused
+    from hypergef.sparse.bsr import plan_bsr
 
     from conftest import dense_hgnn_oracle
 

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from hypergef_tpu.data import datasets
+from hypergef.data import datasets
 
 
 def test_le_format(tmp_path):
@@ -65,12 +65,12 @@ def test_unknown_dataset():
 
 
 def test_from_edge_index_id_space_semantics():
-    """VERDICT r1 weak #8: non-dense hyperedge id spaces must not be
+    """Non-dense hyperedge id spaces must not be
     silently mislabeled.  The reference counts *unique* ids but indexes
     with *raw* values (hypergraph.py:15-19) — here the two semantics are
     explicit: raw (gaps = empty hyperedges) vs compact (dense remap)."""
     import numpy as np
-    from hypergef_tpu.sparse.hypergraph import Hypergraph
+    from hypergef.sparse.hypergraph import Hypergraph
 
     n = 4
     # vertices 0..3; hyperedge ids n+0 and n+5 (gap: ids 1..4 unused)

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hypergef_tpu.parallel import (
+from hypergef.parallel import (
     make_mesh,
     plan_sharded_dense,
     sharded_dense_hgnn_aggregate,

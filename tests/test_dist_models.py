@@ -14,16 +14,16 @@ import numpy as np
 
 from conftest import dense_unignn_oracle
 
-from hypergef_tpu.data.synthetic import homophilic_hypergraph
-from hypergef_tpu.parallel import make_mesh
-from hypergef_tpu.parallel.dist_model import (
+from hypergef.data.synthetic import homophilic_hypergraph
+from hypergef.parallel import make_mesh
+from hypergef.parallel.dist_model import (
     init_unigcnii_params,
     init_unigin_params,
     make_dist_unigcnii_train_step,
     make_dist_unigin_train_step,
 )
-from hypergef_tpu.parallel.partition import plan_sharded_aggregation
-from hypergef_tpu.train import rand_train_test_idx
+from hypergef.parallel.partition import plan_sharded_aggregation
+from hypergef.train import rand_train_test_idx
 
 
 def _setup(n=300, e=200, c=4, f=12, seed=0):

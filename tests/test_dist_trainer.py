@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from hypergef_tpu.data.synthetic import homophilic_hypergraph
-from hypergef_tpu.parallel.trainer import DistTrainer
-from hypergef_tpu.train import rand_train_test_idx
+from hypergef.data.synthetic import homophilic_hypergraph
+from hypergef.parallel.trainer import DistTrainer
+from hypergef.train import rand_train_test_idx
 
 
 def test_dist_trainer_learns_and_matches_mesh_sizes():
@@ -79,14 +79,14 @@ def test_dist_trainer_max_chained_epochs():
 
 def test_dist_trainer_checkpoint_resume(tmp_path):
     """Distributed checkpoint/resume: sharded (params, opt_state) round-trip
-    through orbax onto the live mesh, and training continues from the
+    through the .npz checkpoint onto the live mesh, and training continues from the
     restored state (SURVEY §5: the reference has no resume at all)."""
     import jax
     import numpy as np
 
-    from hypergef_tpu.data.synthetic import homophilic_hypergraph, random_features
-    from hypergef_tpu.parallel.trainer import DistTrainer
-    from hypergef_tpu.train import rand_train_test_idx
+    from hypergef.data.synthetic import homophilic_hypergraph, random_features
+    from hypergef.parallel.trainer import DistTrainer
+    from hypergef.train import rand_train_test_idx
 
     hg, y = homophilic_hypergraph(200, 120, 3, avg_edge_size=5.0, seed=11)
     x, _ = random_features(hg.num_nodes, 12, 3, seed=12)

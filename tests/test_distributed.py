@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hypergef_tpu.parallel import (
+from hypergef.parallel import (
     edge_partition_bounds,
     make_mesh,
     plan_sharded_aggregation,
@@ -86,8 +86,8 @@ def test_sharded_unignn(skewed_hg, mesh8):
 
 
 def test_sharded_grad_matches_single_device(skewed_hg, mesh8):
-    from hypergef_tpu.ops import fused
-    from hypergef_tpu.sparse.planner import plan_tree
+    from hypergef.ops import fused
+    from hypergef.sparse.planner import plan_tree
 
     hg = skewed_hg
     plan = plan_sharded_aggregation(hg, 8)

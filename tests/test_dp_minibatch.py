@@ -18,10 +18,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from hypergef_tpu.data.sampling import HyperedgeSampler
-from hypergef_tpu.data.synthetic import homophilic_hypergraph
-from hypergef_tpu.train import TrainConfig, rand_train_test_idx
-from hypergef_tpu.train.dp_minibatch import DPMinibatchTrainer, stack_batches
+from hypergef.data.sampling import HyperedgeSampler
+from hypergef.data.synthetic import homophilic_hypergraph
+from hypergef.train import TrainConfig, rand_train_test_idx
+from hypergef.train.dp_minibatch import DPMinibatchTrainer, stack_batches
 
 
 @pytest.fixture(scope="module")

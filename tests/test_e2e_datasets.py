@@ -14,8 +14,8 @@ import os
 import numpy as np
 import pytest
 
-from hypergef_tpu.data.datasets import EXISTING_DATASETS, load_dataset
-from hypergef_tpu.train import TrainConfig, rand_train_test_idx, train_full_batch
+from hypergef.data.datasets import EXISTING_DATASETS, load_dataset
+from hypergef.train import TrainConfig, rand_train_test_idx, train_full_batch
 
 FIXTURE_ROOT = os.path.join(os.path.dirname(__file__), "fixtures", "data")
 
@@ -80,7 +80,7 @@ def test_train_accuracy_band(name, model):
 
 def test_cli_on_fixture(tmp_path, capsys):
     """The reference CLI surface over a real-format fixture dataset."""
-    from hypergef_tpu.train.cli import main
+    from hypergef.train.cli import main
 
     out_f = tmp_path / "res.csv"
     res = main([

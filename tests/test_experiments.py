@@ -16,7 +16,6 @@ ENV = dict(
 
 
 def run(script, *args, timeout=360):
-    # each script re-asserts cpu via jax.config when JAX_PLATFORMS is set
     cmd = [sys.executable, os.path.join(ROOT, "experiments", script), *args]
     return subprocess.run(cmd, env=ENV, capture_output=True, text=True,
                           timeout=timeout, cwd=ROOT)
@@ -50,11 +49,12 @@ def test_fig8_smoke(tmp_path):
 
 def test_weak_scaling_smoke(tmp_path):
     r = run("weak_scaling.py", "--shards", "1,2", "--nnz-per-shard", "5000",
-            "--iters", "2", "--out", str(tmp_path / "ws.csv"))
+            "--iters", "2", "--link-gbps", "450", "--ns-per-nnz", "2",
+            "--ns-per-nnz-aligned", "1", "--out", str(tmp_path / "ws.csv"))
     assert r.returncode == 0, r.stderr[-2000:]
     body = open(tmp_path / "ws.csv").read()
     # plan-derived traffic schema (round 2): comm fraction + per-link
-    # bytes + modeled ICI time, for random AND clustered graphs
+    # bytes + modeled link time, for random AND clustered graphs
     assert "comm_frac" in body and "max_link_MB" in body
     assert "clustered,2," in body and "random,2," in body
 
@@ -129,8 +129,9 @@ def test_scale_serialized_smoke(tmp_path):
     """Serialized halo measurement driver (100M artifact) at toy scale."""
     r = run("scale_serialized.py", "--nodes", "4000", "--edges", "2000",
             "--comm", "10", "--shards", "2", "--iters", "2",
+            "--link-gbps", "450", "--plan-cache", str(tmp_path / "pc"),
             "--out", str(tmp_path / "s.csv"), timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     body = open(tmp_path / "s.csv").read()
     assert "MEASURED(serialized)" in body
-    assert "halo_buffer" in body and "ici_transfer" in body
+    assert "halo_buffer" in body and "link_transfer" in body

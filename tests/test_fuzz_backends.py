@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hypergef_tpu.data.synthetic import powerlaw_hypergraph, random_hypergraph
-from hypergef_tpu.ops import fused
-from hypergef_tpu.sparse.bsr import plan_bsr
-from hypergef_tpu.sparse.planner import plan_aggregation, plan_tree
+from hypergef.data.synthetic import powerlaw_hypergraph, random_hypergraph
+from hypergef.ops import fused
+from hypergef.sparse.bsr import plan_bsr
+from hypergef.sparse.planner import plan_aggregation, plan_tree
 
 from conftest import dense_hgnn_oracle
 

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hypergef_tpu.ops import refops, fused
-from hypergef_tpu.sparse.planner import plan_tiles
+from hypergef.ops import refops, fused
+from hypergef.sparse.planner import plan_tiles
 
 from conftest import dense_hgnn_oracle
 
@@ -104,7 +104,7 @@ def test_dense_int8_backend_grad_matches_xla(small_hg, aggr):
     """The int8 DenseIncidence (round 2) differentiates wrt x through
     the fused i8->bf16 cast at the dot — gradient must match the f32
     gather path within the bf16-matmul tolerance class."""
-    from hypergef_tpu.sparse.planner import plan_aggregation
+    from hypergef.sparse.planner import plan_aggregation
 
     hg = small_hg
     hgd = hg.device_data()

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hypergef_tpu.parallel import make_mesh
-from hypergef_tpu.parallel.halo import plan_halo
-from hypergef_tpu.parallel.halo_aggr import (
+from hypergef.parallel import make_mesh
+from hypergef.parallel.halo import plan_halo
+from hypergef.parallel.halo_aggr import (
     halo_hgnn_aggregate,
     shard_vertex_features,
     unshard_vertex_features,
@@ -90,7 +90,7 @@ def test_halo_max_grad_matches_oracle(small_hg):
 
 def test_halo_max_on_aligned_interior():
     """Round 3 (was a hard error): first_aggr='max' keeps the ALIGNED
-    interior — masked-argmax Pallas kernel forward + record-routed VJP
+    interior — masked argmax over the band (XLA) + record-routed VJP
     over the transpose aligned stage.  Forward and gradient must match
     the dense oracle."""
     import sys, os
@@ -145,7 +145,7 @@ def test_halo_with_wdiag(small_hg):
     x = rand_x(hg, f=4, seed=2)
     w = np.random.default_rng(3).uniform(0.5, 1.5, (hg.num_edges, 1)).astype(np.float32)
     # wdiag stacked per edge shard
-    from hypergef_tpu.parallel.partition import ShardedAggPlan
+    from hypergef.parallel.partition import ShardedAggPlan
 
     w_stacked = np.zeros((8, plan.e_pad, 1), dtype=np.float32)
     for d in range(8):
@@ -204,16 +204,16 @@ def test_interior_independent_of_halo_collective():
     """The overlap property, proven on the traced program: the interior
     V→E tree must have no data dependence on the halo all_to_all (that
     independence is what lets XLA's latency-hiding scheduler run it
-    between the collective's start/done pair on real multi-chip TPU),
+    between the collective's start/done pair on real multi-device hardware),
     while the return all_to_all and the output must depend on it."""
     import sys, os
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "experiments"))
     from weak_scaling import clustered_hypergraph
 
-    from hypergef_tpu.parallel.halo_aggr import (
+    from hypergef.parallel.halo_aggr import (
         halo_hgnn_aggregate, shard_vertex_features)
-    from hypergef_tpu.parallel.mesh import make_mesh
-    from hypergef_tpu.utils.introspect import collective_overlap_report
+    from hypergef.parallel.mesh import make_mesh
+    from hypergef.utils.introspect import collective_overlap_report
 
     hg = clustered_hypergraph(8000, 4000, 8.0, seed=0)
     plan = plan_halo(hg, 8)
@@ -232,7 +232,7 @@ def test_interior_independent_of_halo_collective():
 
 
 def test_halo_aligned_interior():
-    """local_form="aligned": the interior V→E runs as banded MXU matmuls
+    """local_form="aligned": the interior V→E runs as banded matmuls
     (uniform aligned stages stacked across shards) with an exact-VJP
     transpose stage.  Checks: forward parity with the single-device
     oracle (bf16 tolerance), one train step produces the same parameter
@@ -244,13 +244,13 @@ def test_halo_aligned_interior():
     import optax
     from weak_scaling import clustered_hypergraph
 
-    from hypergef_tpu.data.synthetic import random_hypergraph
-    from hypergef_tpu.ops import fused
-    from hypergef_tpu.parallel.halo_aggr import (
+    from hypergef.data.synthetic import random_hypergraph
+    from hypergef.ops import fused
+    from hypergef.parallel.halo_aggr import (
         halo_hgnn_aggregate, make_halo_train_step, shard_vertex_features,
         unshard_vertex_features)
-    from hypergef_tpu.parallel.mesh import make_mesh
-    from hypergef_tpu.utils.introspect import collective_overlap_report
+    from hypergef.parallel.mesh import make_mesh
+    from hypergef.utils.introspect import collective_overlap_report
 
     hg = clustered_hypergraph(8000, 4000, 8.0, seed=0)
     x = np.random.default_rng(0).normal(size=(hg.num_nodes, 16)).astype(
@@ -317,8 +317,8 @@ def test_halo_aligned_interior():
 
 
 def test_halo_grad_matches_single_device(skewed_hg):
-    from hypergef_tpu.ops import fused
-    from hypergef_tpu.sparse.planner import plan_tree
+    from hypergef.ops import fused
+    from hypergef.sparse.planner import plan_tree
 
     hg = skewed_hg
     mesh = make_mesh(8, 1)
@@ -360,7 +360,7 @@ def test_halo_unignn_matches_oracle(skewed_hg):
     (UniGCNII) form, vs the dense oracle."""
     from conftest import dense_unignn_oracle
 
-    from hypergef_tpu.parallel.halo_aggr import halo_unignn_aggregate
+    from hypergef.parallel.halo_aggr import halo_unignn_aggregate
 
     hg = skewed_hg
     mesh = make_mesh(8, 1)
@@ -376,12 +376,12 @@ def test_halo_unignn_matches_oracle(skewed_hg):
 
 def test_halo_unigin_unigcnii_train():
     """All three model families train on the fully-sharded halo design."""
-    from hypergef_tpu.data.synthetic import homophilic_hypergraph
-    from hypergef_tpu.parallel.dist_model import (
+    from hypergef.data.synthetic import homophilic_hypergraph
+    from hypergef.parallel.dist_model import (
         init_unigcnii_params, init_unigin_params)
-    from hypergef_tpu.parallel.halo_aggr import (
+    from hypergef.parallel.halo_aggr import (
         make_halo_unigcnii_train_step, make_halo_unigin_train_step)
-    from hypergef_tpu.train import rand_train_test_idx
+    from hypergef.train import rand_train_test_idx
 
     hg, y = homophilic_hypergraph(400, 250, 4, seed=9)
     x = np.random.default_rng(10).normal(size=(400, 12)).astype(np.float32)

@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hypergef_tpu.data.synthetic import powerlaw_hypergraph, random_hypergraph
-from hypergef_tpu.ops import fused, maxops, refops
-from hypergef_tpu.sparse.planner import plan_aggregation
+from hypergef.data.synthetic import powerlaw_hypergraph, random_hypergraph
+from hypergef.ops import fused, maxops, refops
+from hypergef.sparse.planner import plan_aggregation
 
 from conftest import dense_hgnn_oracle
 
@@ -113,7 +113,7 @@ def test_max_grad_finite_difference():
 
 def test_max_empty_segments():
     """Hyperedges with no members produce y=0 and zero gradient flow."""
-    from hypergef_tpu.sparse.hypergraph import Hypergraph
+    from hypergef.sparse.hypergraph import Hypergraph
 
     # edge 1 is empty
     vertex = np.array([0, 1, 2, 0, 3], dtype=np.int64)

@@ -5,8 +5,8 @@ checks the reference lacks)."""
 import numpy as np
 import pytest
 
-from hypergef_tpu.data.synthetic import random_features, random_hypergraph
-from hypergef_tpu.train import TrainConfig, Trainer, rand_train_test_idx, train_full_batch
+from hypergef.data.synthetic import random_features, random_hypergraph
+from hypergef.train import TrainConfig, Trainer, rand_train_test_idx, train_full_batch
 
 
 @pytest.fixture(scope="module")

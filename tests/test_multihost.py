@@ -2,8 +2,8 @@
 
 Spawns two worker processes that rendezvous through jax.distributed on a
 localhost coordinator, build the hybrid (d, e, f) mesh, and run psums
-across the process (DCN) boundary (VERDICT round-1 gap #38: no
-jax.distributed anywhere).
+across the process boundary (the reference has no
+jax.distributed equivalent anywhere).
 """
 
 import os
@@ -61,7 +61,7 @@ def test_two_process_cpu_mesh():
 def test_single_process_defaults():
     """init_distributed is a no-op without a coordinator; hybrid mesh
     degenerates to d=1 over local devices."""
-    from hypergef_tpu.parallel import multihost
+    from hypergef.parallel import multihost
 
     multihost.init_distributed()  # no env → no-op
     mesh = multihost.make_hybrid_mesh(n_edge=4, n_feature=2)

@@ -1,4 +1,4 @@
-"""Multihot-MXU backend: tile-local multihot matmul level-0
+"""Multihot-matmul backend: tile-local multihot matmul level-0
 (ops/tree._apply_tiled_multihot) vs the dense oracle, incl. gradients
 and the fragmentation planner stat."""
 
@@ -7,13 +7,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hypergef_tpu.data.synthetic import (
+from hypergef.data.synthetic import (
     homophilic_hypergraph,
     powerlaw_hypergraph,
     random_hypergraph,
 )
-from hypergef_tpu.ops import fused
-from hypergef_tpu.sparse.planner import plan_aggregation, plan_multihot
+from hypergef.ops import fused
+from hypergef.sparse.planner import plan_aggregation, plan_multihot
 
 from conftest import dense_hgnn_oracle
 
@@ -101,7 +101,7 @@ def test_multihot_in_aggregation_plan():
 
 @pytest.mark.parametrize("case", [0, 1, 2])
 def test_multihot_precomp_parity(case):
-    """Host-precomputed dense multihot blocks (streaming MXU form)."""
+    """Host-precomputed dense multihot blocks (streaming matmul form)."""
     hg, hgd, plan = _case(case, form="multihot_precomp")
     rng = np.random.default_rng(case)
     x = rng.normal(size=(hg.num_nodes, 5)).astype(np.float32)
@@ -129,7 +129,7 @@ def test_multihot_precomp_parity(case):
 
 def test_multihot_precomp_downgrade():
     """Above the byte budget the precomp form downgrades per stage."""
-    from hypergef_tpu.sparse.planner import plan_multihot
+    from hypergef.sparse.planner import plan_multihot
 
     hg = random_hypergraph(256, 150, avg_edge_size=4.0, seed=1)
     hg = hg[0] if isinstance(hg, tuple) else hg
@@ -141,7 +141,7 @@ def test_multihot_precomp_downgrade():
 
 @pytest.mark.parametrize("case", range(len(CASES)))
 def test_multihot_nested_combine_parity(case):
-    """Nested multihot-MXU combine (combine="multihot_precomp"): the
+    """Nested multihot-matmul combine (combine="multihot_precomp"): the
     flat-partial combine runs as a second tiled multihot stage instead
     of the gather tree — forward + grad must match the oracle."""
     gen, n, e, kw = CASES[case]
@@ -150,7 +150,7 @@ def test_multihot_nested_combine_parity(case):
     hgd = hg.device_data()
     plan = plan_multihot(hg, tile_rows=64, form="multihot_precomp",
                          combine="multihot_precomp")
-    from hypergef_tpu.sparse.planner import TiledStage
+    from hypergef.sparse.planner import TiledStage
 
     assert isinstance(plan.edge_stage.combine, TiledStage)
     rng = np.random.default_rng(case)

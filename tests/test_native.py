@@ -7,8 +7,8 @@ import os
 import numpy as np
 import pytest
 
-from hypergef_tpu.sparse import native
-from hypergef_tpu.sparse.planner import build_ell
+from hypergef.sparse import native
+from hypergef.sparse.planner import build_ell
 
 pytestmark = pytest.mark.skipif(
     not (native.available() or native.build()), reason="native lib not built"
@@ -28,7 +28,7 @@ def test_build_ell_bit_identical(skewed_hg, ngs):
 
 
 def test_mtx_roundtrip(tmp_path, small_hg):
-    from hypergef_tpu.sparse import mtx
+    from hypergef.sparse import mtx
 
     path = str(tmp_path) + "/"
     fn = small_hg.store_mtx(path)
@@ -43,7 +43,7 @@ def test_mtx_roundtrip(tmp_path, small_hg):
 def test_native_mtx_matches_scipy(tmp_path, skewed_hg):
     import scipy.io
 
-    from hypergef_tpu.sparse.hypergraph import Hypergraph
+    from hypergef.sparse.hypergraph import Hypergraph
 
     fn = str(tmp_path / "g.mtx")
     scipy.io.mmwrite(fn, skewed_hg.to_scipy())
@@ -92,12 +92,12 @@ def test_community_order_parity():
     """C++ label propagation ≡ NumPy twin, bit-for-bit."""
     import pytest
 
-    from hypergef_tpu.sparse import native
-    from hypergef_tpu.sparse.reorder import community_order_numpy
+    from hypergef.sparse import native
+    from hypergef.sparse.reorder import community_order_numpy
 
     if not native.available():
         pytest.skip("native lib not built")
-    from hypergef_tpu.data.synthetic import homophilic_hypergraph, random_hypergraph
+    from hypergef.data.synthetic import homophilic_hypergraph, random_hypergraph
 
     for hg in [
         homophilic_hypergraph(300, 200, 8, seed=3)[0],
@@ -116,12 +116,12 @@ def test_coarsen_order_parity():
     pairwise and would diverge)."""
     import pytest
 
-    from hypergef_tpu.sparse import native
-    from hypergef_tpu.sparse.reorder import apply_vertex_order, coarsen_order
+    from hypergef.sparse import native
+    from hypergef.sparse.reorder import apply_vertex_order, coarsen_order
 
     if not native.available():
         pytest.skip("native lib not built")
-    from hypergef_tpu.data.synthetic import (
+    from hypergef.data.synthetic import (
         homophilic_hypergraph, powerlaw_hypergraph, random_hypergraph)
 
     hgs = [
@@ -145,10 +145,10 @@ def test_coarsen_order_parity():
 def test_community_reorder_improves_locality():
     """On a community graph with SHUFFLED vertex ids, the reorder must
     recover tile locality (lower multihot fragmentation)."""
-    from hypergef_tpu.data.synthetic import homophilic_hypergraph
-    from hypergef_tpu.sparse.hypergraph import Hypergraph
-    from hypergef_tpu.sparse.planner import plan_multihot
-    from hypergef_tpu.sparse.reorder import community_reorder
+    from hypergef.data.synthetic import homophilic_hypergraph
+    from hypergef.sparse.hypergraph import Hypergraph
+    from hypergef.sparse.planner import plan_multihot
+    from hypergef.sparse.reorder import community_reorder
 
     hg0, labels = homophilic_hypergraph(600, 400, 6, avg_edge_size=8.0,
                                         noise=0.02, seed=11)
@@ -160,8 +160,8 @@ def test_community_reorder_improves_locality():
 
 
 def test_apply_vertex_order_preserves_structure():
-    from hypergef_tpu.data.synthetic import random_hypergraph
-    from hypergef_tpu.sparse.reorder import apply_vertex_order
+    from hypergef.data.synthetic import random_hypergraph
+    from hypergef.sparse.reorder import apply_vertex_order
 
     out = random_hypergraph(80, 50, avg_edge_size=3.0, seed=9)
     hg = out[0] if isinstance(out, tuple) else out

@@ -1,9 +1,7 @@
 """Packed-int4 incidence tables: explicit opt-in correctness.
 
-The packed form is a recorded NEGATIVE result as a production default
-(the in-program S4 unpack costs ~4 ms and XLA never hoists it out of
-loop bodies — docs/KERNEL_NOTES.md "packed int4 dense incidence"), but
-the machinery stays available (``dtype=jnp.int4`` /
+The packed form is not the production default (the S4 unpack runs
+inside every consuming program), but the machinery stays available (``dtype=jnp.int4`` /
 ``plan_sharded_dense(packed=True)``) and must remain bit-correct:
 these tests pin the nibble packing (low nibble = even column), the
 barrier-guarded bitcast unpack (XLA mis-constant-folds S4 bitcasts of
@@ -16,8 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hypergef_tpu.ops import fused
-from hypergef_tpu.sparse.planner import DenseIncidence, plan_aggregation
+from hypergef.ops import fused
+from hypergef.sparse.planner import DenseIncidence, plan_aggregation
 
 
 @pytest.fixture(scope="module")
@@ -71,7 +69,7 @@ def test_packed_grad_matches_int8_bitexact(small_hg, packed_plan):
 
 
 def test_packed_rejects_multiplicity_over_7():
-    from hypergef_tpu.sparse.hypergraph import Hypergraph
+    from hypergef.sparse.hypergraph import Hypergraph
 
     v = np.zeros(9, np.int64)  # vertex 0 appears 9x in hyperedge 0
     e = np.zeros(9, np.int64)
@@ -82,8 +80,8 @@ def test_packed_rejects_multiplicity_over_7():
 
 def test_packed_sharded_dense_matches_unpacked(small_hg):
     """plan_sharded_dense(packed=True) opt-in: same psum result."""
-    from hypergef_tpu.parallel import make_mesh
-    from hypergef_tpu.parallel.dense_shard import (
+    from hypergef.parallel import make_mesh
+    from hypergef.parallel.dense_shard import (
         plan_sharded_dense,
         sharded_dense_hgnn_aggregate,
     )

@@ -1,4 +1,4 @@
-"""Real-data readiness kit tests (hypergef_tpu.data.parity).
+"""Real-data readiness kit tests (hypergef.data.parity).
 
 The reference's real-data story is its tier-1 dataset test
 (``test/hgnn_test.py:65-92``) plus trained accuracies; this environment
@@ -13,8 +13,8 @@ import shutil
 
 import pytest
 
-from hypergef_tpu.data.datasets import EXISTING_DATASETS
-from hypergef_tpu.data import parity
+from hypergef.data.datasets import EXISTING_DATASETS
+from hypergef.data import parity
 
 FIXTURE_ROOT = os.path.join(os.path.dirname(__file__), "fixtures", "data")
 

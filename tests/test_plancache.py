@@ -17,10 +17,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from hypergef_tpu.data.synthetic import random_hypergraph
-from hypergef_tpu.ops import fused
-from hypergef_tpu.sparse import plancache
-from hypergef_tpu.sparse.planner import plan_aggregation
+from hypergef.data.synthetic import random_hypergraph
+from hypergef.ops import fused
+from hypergef.sparse import plancache
+from hypergef.sparse.planner import plan_aggregation
 
 from test_aligned import _community_hg
 
@@ -90,7 +90,7 @@ def test_cached_builds_once_then_loads(tmp_path, monkeypatch):
     hg = random_hypergraph(120, 70, avg_edge_size=4.0, seed=5)
     d = str(tmp_path / "plans")
     calls = []
-    import hypergef_tpu.sparse.planner as planner_mod
+    import hypergef.sparse.planner as planner_mod
 
     real = planner_mod.plan_aggregation
 
@@ -119,7 +119,7 @@ def test_corrupt_cache_file_rebuilds(tmp_path):
 
 
 def test_refuses_foreign_classes(tmp_path):
-    with pytest.raises(ValueError, match="outside hypergef_tpu"):
+    with pytest.raises(ValueError, match="outside hypergef"):
         plancache._resolve_class("os.path:join")
 
 
@@ -128,11 +128,11 @@ def test_halo_plan_round_trip(tmp_path):
     program on a reloaded plan matches the original's output."""
     import jax
 
-    from hypergef_tpu.parallel.halo import plan_halo
-    from hypergef_tpu.parallel.halo_aggr import (
+    from hypergef.parallel.halo import plan_halo
+    from hypergef.parallel.halo_aggr import (
         halo_hgnn_aggregate, shard_vertex_features, unshard_vertex_features,
     )
-    from hypergef_tpu.parallel.mesh import make_mesh
+    from hypergef.parallel.mesh import make_mesh
 
     hg = random_hypergraph(200, 140, avg_edge_size=5.0, seed=13)
     plan = plan_halo(hg, 4)
@@ -153,9 +153,9 @@ def test_halo_plan_round_trip(tmp_path):
 
 
 def test_trainer_plan_cache_wiring(tmp_path):
-    from hypergef_tpu.train import TrainConfig, rand_train_test_idx
-    from hypergef_tpu.train.trainer import Trainer
-    from hypergef_tpu.data.synthetic import homophilic_hypergraph
+    from hypergef.train import TrainConfig, rand_train_test_idx
+    from hypergef.train.trainer import Trainer
+    from hypergef.data.synthetic import homophilic_hypergraph
 
     hg, y = homophilic_hypergraph(200, 120, 4, seed=3)
     x = np.random.default_rng(3).normal(size=(200, 16)).astype(np.float32)

@@ -5,7 +5,7 @@ transcription of the reference's balancer chunking rule."""
 import numpy as np
 import pytest
 
-from hypergef_tpu.sparse.planner import build_ell, choose_ngs, plan_tiles
+from hypergef.sparse.planner import build_ell, choose_ngs, plan_tiles
 
 
 def reference_chunk_keys(ngs, indptr):
@@ -103,8 +103,8 @@ def test_auto_ladder_prefers_cumsum_small_random():
     """Uniform-random graphs beyond the dense/precomp regimes but under
     CUMSUM_PREFER_NNZ land on the cumsum backend (measured faster than
     the gather tree below ~131k nnz, probe_cumsum_crossover.py)."""
-    from hypergef_tpu.data.synthetic import random_hypergraph
-    from hypergef_tpu.sparse.planner import CUMSUM_PREFER_NNZ, plan_aggregation
+    from hypergef.data.synthetic import random_hypergraph
+    from hypergef.sparse.planner import CUMSUM_PREFER_NNZ, plan_aggregation
 
     hg = random_hypergraph(10_000, 10_000, avg_edge_size=4.0, seed=0)
     assert hg.nnz <= CUMSUM_PREFER_NNZ

@@ -4,8 +4,8 @@
 import numpy as np
 import pytest
 
-from hypergef_tpu.ops import refops, fused
-from hypergef_tpu.sparse.planner import plan_tiles
+from hypergef.ops import refops, fused
+from hypergef.sparse.planner import plan_tiles
 
 from conftest import dense_hgnn_oracle, dense_unignn_oracle, dense_incidence
 
@@ -58,7 +58,7 @@ def test_tiny_hand_example(tiny_hg):
 
 
 def test_deg_guard_isolated_vertices_empty_edges():
-    from hypergef_tpu.sparse.hypergraph import Hypergraph
+    from hypergef.sparse.hypergraph import Hypergraph
 
     # vertex 3 isolated; edge 2 empty
     v = np.array([0, 1, 2])

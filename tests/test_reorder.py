@@ -8,9 +8,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from hypergef_tpu.ops import fused, refops
-from hypergef_tpu.sparse import planner
-from hypergef_tpu.sparse.reorder import (
+from hypergef.ops import fused, refops
+from hypergef.sparse import planner
+from hypergef.sparse.reorder import (
     apply_vertex_order, coarsen_order, community_reorder,
 )
 
@@ -85,7 +85,7 @@ def test_full_pipeline_shuffled_to_aligned(sbm_shuffled):
 
 
 def test_coarsen_handles_degenerate_graphs():
-    from hypergef_tpu.sparse.hypergraph import Hypergraph
+    from hypergef.sparse.hypergraph import Hypergraph
 
     # singleton edges only → no pairs → identity-ish order, still valid
     hg = Hypergraph.from_coo(np.array([0, 1, 2]), np.array([0, 1, 2]),

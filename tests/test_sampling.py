@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from hypergef_tpu.data.sampling import HyperedgeSampler
-from hypergef_tpu.data.synthetic import homophilic_hypergraph, random_features
-from hypergef_tpu.ops import refops
-from hypergef_tpu.train import TrainConfig, rand_train_test_idx
-from hypergef_tpu.train.minibatch import MinibatchTrainer
+from hypergef.data.sampling import HyperedgeSampler
+from hypergef.data.synthetic import homophilic_hypergraph, random_features
+from hypergef.ops import refops
+from hypergef.train import TrainConfig, rand_train_test_idx
+from hypergef.train.minibatch import MinibatchTrainer
 
 from conftest import dense_hgnn_oracle
 
@@ -91,7 +91,7 @@ def test_padded_batch_gradient_parity(big_setup):
     import jax
     import jax.numpy as jnp
 
-    from hypergef_tpu.ops import fused
+    from hypergef.ops import fused
 
     hg, x, y = big_setup
     s = HyperedgeSampler(hg, batch_edges=48, seed=5)

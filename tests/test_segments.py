@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hypergef_tpu.ops import fused, segments
+from hypergef.ops import fused, segments
 from conftest import dense_hgnn_oracle, dense_unignn_oracle
 
 
@@ -25,7 +25,7 @@ def test_segment_sum_sorted_basic():
 
 
 def test_mxu_block_scan_path_matches_oracle():
-    """Exercise the blockwise MXU prefix path (rows >= _SCAN_MIN_ROWS),
+    """Exercise the blockwise matmul prefix path (rows >= _SCAN_MIN_ROWS),
     including a non-multiple-of-128 length and empty segments."""
     rng = np.random.default_rng(3)
     nnz = segments._SCAN_MIN_ROWS + 517  # force the matmul path, ragged tail

@@ -8,8 +8,8 @@ with a serialized measurement (round-4 mandate #9).
 import numpy as np
 import pytest
 
-from hypergef_tpu.parallel.halo import plan_halo
-from hypergef_tpu.parallel.serial_halo import serialized_halo_forward
+from hypergef.parallel.halo import plan_halo
+from hypergef.parallel.serial_halo import serialized_halo_forward
 
 from conftest import dense_hgnn_oracle
 
@@ -36,8 +36,8 @@ def test_serialized_matches_shard_map(skewed_hg):
     import jax
     import jax.numpy as jnp
 
-    from hypergef_tpu.parallel import make_mesh
-    from hypergef_tpu.parallel.halo_aggr import (
+    from hypergef.parallel import make_mesh
+    from hypergef.parallel.halo_aggr import (
         halo_hgnn_aggregate, shard_vertex_features, unshard_vertex_features,
     )
 

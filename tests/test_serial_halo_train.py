@@ -11,10 +11,10 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from hypergef_tpu.data.synthetic import homophilic_hypergraph  # noqa: E402
-from hypergef_tpu.ops import refops  # noqa: E402
-from hypergef_tpu.parallel.halo import plan_halo  # noqa: E402
-from hypergef_tpu.parallel.serial_halo_train import (  # noqa: E402
+from hypergef.data.synthetic import homophilic_hypergraph  # noqa: E402
+from hypergef.ops import refops  # noqa: E402
+from hypergef.parallel.halo import plan_halo  # noqa: E402
+from hypergef.parallel.serial_halo_train import (  # noqa: E402
     serialized_halo_train_epochs, serialized_halo_train_step)
 
 

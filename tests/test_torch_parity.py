@@ -7,8 +7,8 @@ The reference trains with torch: PyG-style gather/scatter convs
 these tests rebuild that exact pipeline *in torch* from the documented
 math, copy this framework's initial weights into it, train BOTH stacks
 for dozens of epochs, and assert the loss trajectories and final
-predictions track — a far stronger oracle than loss-goes-down checks
-(round-1 VERDICT "weak #7"): it validates the conv semantics, the
+predictions track — a far stronger oracle than loss-goes-down checks:
+it validates the conv semantics, the
 log_softmax/nll wiring, AND the optimizer equivalence
 (optax add_decayed_weights+scale_by_adam == torch Adam(weight_decay=)).
 
@@ -23,8 +23,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from hypergef_tpu.data.synthetic import homophilic_hypergraph  # noqa: E402
-from hypergef_tpu.train import TrainConfig, Trainer, rand_train_test_idx  # noqa: E402
+from hypergef.data.synthetic import homophilic_hypergraph  # noqa: E402
+from hypergef.train import TrainConfig, Trainer, rand_train_test_idx  # noqa: E402
 
 EPOCHS = 40
 
@@ -76,8 +76,6 @@ def _losses_ours(tr, train_idx, epochs):
 
 
 def _final_preds_ours(tr, params):
-    import flax
-
     tr.params = params
     return np.asarray(tr._forward(params, tr.x)).argmax(axis=1)
 
